@@ -21,7 +21,6 @@ from .dsp.receiver import WidebandReceiver
 from .io.outputs import OutputManager
 from .protocol.pdu import PduMetadata, parse_pdu
 from .protocol.runtime import ProtocolContext
-from .utils.xfer import device_get
 
 
 def level_to_db(level: float) -> float:
@@ -40,13 +39,12 @@ class AppConfig:
     nf_stats_interval: int = 10
     mesh: str | None = None             # 'TIMExCHAN' device mesh, e.g. '2x4'
     # demod block length in 5400-sps samples: longer blocks amortize the
-    # fixed per-block dispatch/readback round trip (the throughput wall
-    # on tunneled interconnects) at the cost of event latency; must obey
-    # the symbol-ring history invariant (<= 5400 symbols)
+    # fixed per-block dispatch and event readback at the cost of event
+    # latency; must obey the symbol-ring history invariant (<= 5400
+    # symbols)
     demod_block_len: int = 5400
     # live-stream ingest chunk (wideband samples per upload); None = fs/8
-    # (~0.2 s, low latency).  Every upload is an RPC round trip on
-    # tunneled interconnects, so high-rate configs want ~0.5-1 s chunks.
+    # (~0.2 s, low latency).  Larger chunks mean fewer, larger uploads.
     stream_chunk_samples: int | None = None
 
 
@@ -129,7 +127,7 @@ class HfdlApp:
         counters = getattr(self.receiver.bank, 'last_counters', None)
         if counters is None:
             return
-        c = device_get(counters)
+        c = np.asarray(counters)
         names = ('demod.preamble.A2_found', 'demod.preamble.M1_found',
                  'demod.preamble.errors.M1_not_found',
                  'demod.errors.event_table_overflow')
@@ -356,7 +354,7 @@ class HfdlApp:
 
         def loop():
             while not self._stop.wait(self.cfg.nf_stats_interval):
-                nf = device_get(self.receiver.bank.tracker_state.noise_floor)
+                nf = np.asarray(self.receiver.bank.tracker_state.noise_floor)
                 for i, freq in enumerate(self.cfg.frequencies):
                     db = level_to_db(float(nf[i]))
                     if db <= 0.0:

@@ -21,7 +21,7 @@ from .utils.statsd import StatsdClient
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog='dumphfdl-tpu',
-        description='TPU-native multichannel HFDL decoder',
+        description='Multichannel HFDL decoder (JAX, GPU or CPU)',
     )
     p.add_argument('--version', action='version',
                    version=f'dumphfdl-tpu {__version__}')
@@ -53,9 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument('--demod-block', type=int, default=5400,
                      metavar='SAMPLES',
                      help='demod block length in 5400-sps samples '
-                          '(longer blocks raise throughput on high-'
-                          'latency interconnects at the cost of event '
-                          'latency; max 16200)')
+                          '(longer blocks amortize per-block dispatch '
+                          'at the cost of event latency; max 16200)')
     src.add_argument('--mesh', metavar='TIMExCHAN', default=None,
                      help="multi-chip device mesh, e.g. '2x4': frontend "
                           "FFT work shards over the time axis (halo via "
@@ -202,6 +201,8 @@ def build_app(args) -> HfdlApp:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     print(f'dumphfdl-tpu {__version__}', file=sys.stderr)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     app = build_app(args)
     signal.signal(signal.SIGINT, lambda *_: app.stop())
     signal.signal(signal.SIGTERM, lambda *_: app.stop())

@@ -1,6 +1,6 @@
 """Streaming per-channel demodulator: one fused scan over the symbol clock.
 
-TPU-first redesign of the reference's per-sample decoder thread
+Batched redesign of the reference's per-sample decoder thread
 (/root/reference/src/hfdl.c:593-935).  The reference runs one pthread per
 channel, iterating sample-by-sample through liquid-dsp objects.  Here *all*
 channels advance in lockstep through a single ``lax.scan`` whose carry is a
@@ -25,7 +25,6 @@ Differences from the serial design (behavior-preserving):
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import jax
@@ -34,8 +33,6 @@ import numpy as np
 
 from .. import constants as C
 from .. import sequences as seq
-from ..utils.xfer import czeros as _czeros
-from ..utils.xfer import device_put_safe as _device_put_safe
 
 # --- framer states (hfdl.c:54-62) ---
 A1_SEARCH, A2_SEARCH, M1_SEARCH, M2_SKIP, EQ_TRAIN, DATA_1, DATA_2 = range(1, 8)
@@ -114,7 +111,7 @@ class TrackerState(NamedTuple):
     frame_sym_cnt: jax.Array  # (C,) f32
     noise_floor: jax.Array  # (C,) f32
     nf_clk: jax.Array       # (C,) i32
-    # block-parallel acquisition carry (tracker_pallas): 1 = the
+    # block-parallel acquisition carry (tracker kernel): 1 = the
     # preamble prefilter saw A-sequence energy in the PREVIOUS block, so
     # the next block must run the full symbol loop even if the channel
     # is still hunting (a frame may straddle the boundary).  The scan
@@ -137,6 +134,10 @@ class TrackerOutputs(NamedTuple):
     # block ran with debug_taps=True (dumpfile.c COSTAS/SYMSYNC taps)
     taps: object = None     # (T, C, 3) f32 | None
 
+
+# lax.scan unroll of the symbol loop (tracker_block); fastest of 1, 4, 8 on
+# the H100 (PERF.md)
+SCAN_UNROLL = 4
 
 # event-table geometry shared with dsp/channel.py
 K_EVENTS = 4
@@ -165,8 +166,8 @@ def tracker_init(num_channels: int) -> TrackerState:
         out_idx=z(),
         phi=z(jnp.float32),
         dphi=z(jnp.float32),
-        eq_taps=_device_put_safe(np.tile(_init_eq_taps()[None, :], (c, 1))),
-        eq_buf=_czeros((c, C.EQ_LEN)),
+        eq_taps=jnp.asarray(np.tile(_init_eq_taps()[None, :], (c, 1))),
+        eq_buf=jnp.zeros((c, C.EQ_LEN), jnp.complex64),
         window=jnp.ones((c, C.A_LEN), dtype=jnp.float32),
         fr_state=jnp.full((c,), A1_SEARCH, dtype=jnp.int32),
         symbols_wanted=jnp.ones((c,), dtype=jnp.int32),
@@ -202,13 +203,13 @@ def framer_fsm_step(*, fr, sw, retries, bitmask, mode, data_arity,
     """Framer FSM transitions (hfdl.c:779-891) -- THE single source.
 
     Shared verbatim by the lax.scan tracker (this module) and the Pallas
-    mega-kernel (tracker_pallas.py): every op is elementwise on whatever
-    shape the caller uses ((C,) vectors in the scan, (1, CT) row planes
-    in the kernel), so one definition serves both dialects.
+    kernel (tracker_pallas.py): every op is elementwise on (C,) vectors
+    in the scan and (tile,) vectors in the kernel, so one definition
+    serves both.
 
     Args the two callers provide differently:
       mode_lookup: m1_match -> (segment_count, arity) per-mode values
-        (table gather in the scan; one-hot matmul in the kernel).
+        (table gather in the scan; select chain in the kernel).
       as_flag: bool array -> caller's bitmask dtype (bool / int32).
 
     Returns (updates dict, flags dict).  Callers additionally handle, per
@@ -340,12 +341,14 @@ def _demod_bits_and_err(y, arity):
     return bit, err
 
 
-@functools.partial(jax.jit, static_argnames=('num_steps', 'debug_taps'))
+@functools.partial(jax.jit,
+                   static_argnames=('num_steps', 'debug_taps', 'unroll'))
 def tracker_block(state: TrackerState,
                   x: jax.Array,
                   level: jax.Array,
                   num_steps: int,
-                  debug_taps: bool = False
+                  debug_taps: bool = False,
+                  unroll: int = SCAN_UNROLL,
                   ) -> tuple[TrackerState, TrackerOutputs]:
     """Run the tracker over one block.
 
@@ -355,6 +358,7 @@ def tracker_block(state: TrackerState,
          HALO samples carried from the previous block at the front.
       level: (C, T) AGC signal-level estimate aligned with x.
       num_steps: symbol iterations to run (~(T - 2*HALO) / 3).
+      unroll: scan unroll factor (reduced to a divisor of num_steps).
 
     Returns (new_state, outputs); new_state.tau is rebased for the next
     block (caller prepends the last HALO samples of x).
@@ -375,8 +379,8 @@ def tracker_block(state: TrackerState,
     # ---- per-block channel alignment -------------------------------------
     # One per-channel gather per BLOCK aligns every channel's timing offset
     # to ~0, so the in-scan interpolator reads a single shared slab per
-    # symbol (scalar-index dynamic slice) instead of per-channel gathers,
-    # which dominate the scan cost on TPU.
+    # symbol (scalar-index dynamic slice) instead of per-channel gathers
+    # inside the loop.
     SLAB = 16
     shift = jnp.clip(jnp.round(state.tau).astype(jnp.int32) - HALO_FRONT,
                      -8, 8)
@@ -401,10 +405,11 @@ def tracker_block(state: TrackerState,
     lane_iota = jnp.arange(SLAB, dtype=jnp.int32)[None, :]          # (1, 16)
 
     def taps_for(phase, bank):
-        """(C,) phase indices -> (C, ITAPS) taps via one-hot matmul
-        (per-channel table gathers are slow on TPU)."""
+        """(C,) phase indices -> (C, ITAPS) taps via one-hot matmul (at
+        full f32: a one-hot product is an exact row selection only if the
+        taps are not rounded to TF32)."""
         oh = (phase[:, None] == phase_iota).astype(jnp.float32)     # (C, 33)
-        return oh @ bank                                            # (C, 8)
+        return jnp.matmul(oh, bank, precision=jax.lax.Precision.HIGHEST)
 
     def interp_slab(tau, slab, base, want_deriv):
         """Interpolate every channel at its own tau from the shared slab."""
@@ -536,13 +541,17 @@ def tracker_block(state: TrackerState,
         symbol_cnt = jnp.where(stale, 0, symbol_cnt)
 
         # ---- framer FSM (shared single-source logic) ----
-        corr_a = window @ a_bip / C.A_LEN                    # (C,)
+        # +-1 products summed at full f32: exact integers, so the
+        # threshold tests match the kernel's popcount correlators exactly
+        corr_a = jnp.matmul(window, a_bip,
+                            precision=jax.lax.Precision.HIGHEST) / C.A_LEN
         # the 8-way M1 correlation only matters while some channel is in
         # M1 search (127 symbols per frame); skip the matmul otherwise
         any_m1 = jnp.any(st.fr_state == M1_SEARCH)
 
         def with_m1(w):
-            corr_m = jnp.abs(w @ m1_bip / C.A_LEN)           # (C, 8)
+            corr_m = jnp.abs(jnp.matmul(
+                w, m1_bip, precision=jax.lax.Precision.HIGHEST) / C.A_LEN)
             return (jnp.argmax(corr_m, axis=1).astype(jnp.int32),
                     jnp.max(corr_m, axis=1))
 
@@ -631,10 +640,6 @@ def tracker_block(state: TrackerState,
     ev_table0 = jnp.zeros((c, K_EVENTS + 1, EV_FIELDS), jnp.float32)
     ev_count0 = jnp.zeros((c,), jnp.int32)
     counters0 = jnp.zeros((c, 4), jnp.float32)
-    # unroll: the per-step body is tiny (C-wide vector ops), so scan-step
-    # launch overhead dominates on TPU; unrolling amortizes it and lets
-    # XLA fuse across consecutive symbols.
-    unroll = int(os.environ.get('DUMPHFDL_SCAN_UNROLL', '8'))
     unroll = max(1, min(unroll, num_steps))
     while num_steps % unroll:
         unroll -= 1
@@ -650,18 +655,30 @@ def tracker_block(state: TrackerState,
 
 
 def tracker_block_auto(state: TrackerState, x: jax.Array, level: jax.Array,
-                       num_steps: int, debug_taps: bool = False):
-    """Implementation dispatch: the Pallas mega-kernel on TPU (the whole
-    symbol loop in one VMEM-resident program, tracker_pallas.py), the
-    lax.scan version elsewhere and as the parity-test oracle.  Both share
-    the framer FSM definition (framer_fsm_step above) and both emit the
-    --datadumps loop taps.
-
-    DUMPHFDL_TRACKER=scan|pallas overrides (pallas off-TPU runs in
-    interpret mode -- correct but slow; used by the parity tests)."""
-    impl = os.environ.get('DUMPHFDL_TRACKER', 'auto')
-    if (impl == 'pallas'
-            or (impl == 'auto' and jax.devices()[0].platform == 'tpu')):
-        from .tracker_pallas import tracker_block_pallas
-        return tracker_block_pallas(state, x, level, num_steps, debug_taps)
-    return tracker_block(state, x, level, num_steps, debug_taps)
+                       num_steps: int, debug_taps: bool = False,
+                       impl: str = 'scan', mesh=None, axes=('chan',)):
+    """Implementation dispatch (the choice is made in platform.py):
+    'scan' is the lax.scan tracker above, the reference; 'kernel' the
+    Pallas/Triton GPU kernel (tracker_pallas.py); 'interpret' the same
+    kernel in the Pallas interpreter, for CPU tests.  All share the framer
+    FSM definition (framer_fsm_step above) and emit the --datadumps loop
+    taps.  With a mesh the channel axis is sharded over `axes`, and the
+    kernel runs per device on its channel shard (channels are
+    independent; the scan is partitioned by XLA itself)."""
+    if impl == 'scan':
+        return tracker_block(state, x, level, num_steps, debug_taps)
+    from .tracker_pallas import tracker_block_kernel
+    fn = functools.partial(tracker_block_kernel, num_steps=num_steps,
+                           debug_taps=debug_taps,
+                           interpret=impl == 'interpret')
+    if mesh is None:
+        return fn(state, x, level)
+    from jax.sharding import PartitionSpec as P
+    chan = P(tuple(axes))
+    per_sym = P(None, tuple(axes))
+    outs = TrackerOutputs(sym=per_sym, is_data=per_sym, data_idx=per_sym,
+                          frame_parity=per_sym,
+                          taps=per_sym if debug_taps else None)
+    return jax.shard_map(fn, mesh=mesh, in_specs=(chan, chan, chan),
+                         out_specs=(chan, outs, chan, chan),
+                         check_vma=False)(state, x, level)

@@ -1,49 +1,58 @@
-"""Pallas TPU mega-kernel for the tracker symbol loop.
+"""Pallas (Triton) kernel for the tracker symbol loop on NVIDIA GPUs.
 
-The ``lax.scan`` tracker (tracker.py) dispatches a chain of small XLA ops
-per symbol; at 1800 symbols/s per channel the per-step dispatch overhead
--- not arithmetic -- dominates the demodulator's device time (measured
-~55 us/symbol for a 128-channel batch in BENCH_r01).  This kernel runs
-the ENTIRE symbol loop inside one Pallas program:
+The ``lax.scan`` tracker (tracker.py) runs each symbol as a chain of
+small XLA kernels: at ~1800 symbols per stream-second and a few KB of
+C-wide vector work per kernel, the loop is bound by launch latency, not
+by bandwidth or arithmetic.  This kernel keeps the WHOLE block's symbol
+loop inside one GPU program:
 
-* channels are the lane dimension (128-channel tiles), time is a
-  ``fori_loop`` -- no per-symbol dispatch at all;
-* all loop state (timing/costas/equalizer/framer/event table) lives in
-  VMEM for the whole block;
-* the A/M1 correlators and the interpolator tap lookups are MXU matmuls
-  ((16,128)x(128,CT) and (16,40)x(40,CT) per symbol);
-* input samples stream through VMEM in overlapping time tiles sized by
-  the grid, so arbitrarily long blocks fit.
+* the grid runs over channel tiles only; each program owns ``tile``
+  channels and walks all ``num_steps`` symbols in a ``fori_loop`` whose
+  carry holds the complete per-channel state (timing, costas, the
+  15-tap equalizer taps and delay line as separate (tile,) vectors, so
+  the delay-line shift is a renaming of the carry, and the framer);
+* every value in the loop is a (tile,) vector, one lane per channel: the
+  interpolator reads each channel's 8 input samples straight from the
+  time-major (T, C) planes and its taps from a small bank table, both as
+  per-lane gathers;
+* the 127-bit correlation window is a 4-word bit register, so the A and
+  M1 correlators are exact integer popcounts (no matmul, no TF32);
+* completed-frame events are masked scatter stores into the event
+  table, done only when some channel of the tile completes a frame.
 
-Semantics are identical to tracker.tracker_block (the reference chain it
-models is /root/reference/src/hfdl.c:685-891); tests assert equal decoded
-frames and near-equal symbol trajectories between the two.  The scan
-version remains the reference implementation and the --datadumps path.
+Semantics are those of tracker.tracker_block (the reference chain is
+hfdl.c:685-891): both share framer_fsm_step, and the tests compare the
+two on frames and noise.  The scan stays as the reference
+implementation.
+
+Acquisition gate: a channel tile in which every channel is hunting and
+whose preamble prefilter saw nothing in this block or the previous one
+skips the symbol loop and applies exact closed-form updates of what
+frame detection depends on (see acq_hits and _idle_update).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .. import constants as C
 from .. import sequences as seq
-from .tracker import (A1_SEARCH, DATA_1, DATA_2, EQ_TRAIN, EV_FIELDS,
-                      HALO_FRONT, K_EVENTS, M1_SEARCH, NPHASES,
-                      SLAB_BASE_OFF, TrackerOutputs, TrackerState,
-                      _init_eq_taps, _interp_banks, framer_fsm_step,
-                      tracker_init)
+from .tracker import (A1_SEARCH, DATA_1, DATA_2, EQ_TRAIN, EV_FIELDS, HALO,
+                      HALO_FRONT, K_EVENTS, M1_SEARCH, NPHASES, SLAB_BASE_OFF,
+                      TrackerOutputs, TrackerState, _init_eq_taps,
+                      _interp_banks, framer_fsm_step, tracker_init)
 
-CT = 128          # channels per tile (lane dimension)
+TILE = 16          # channels per program (one warp); see PERF.md
 ITAPS = 8
+SLAB = 16          # input margin the scan's slab reads need past a block
 
-# ---- block-parallel acquisition gate (VERDICT r3 #1b) -------------------
+# ---- block-parallel acquisition gate ------------------------------------
 #
 # Idle channels (hunting, no signal) are the common case at production
 # channel counts, yet the symbol loop costs the same for them as for
@@ -53,22 +62,15 @@ ITAPS = 8
 # symbols.  The prefilter below detects that periodicity open-loop --
 # x[m] * conj(x[m + 381]) box-summed over 381 samples, normalized by
 # energy -- which is immune to CFO (a constant phase on the sum) and to
-# symbol timing (no symbol grid).  Measured on synthesized frames
-# (extras r4 calibration): stat >= 0.87 at 3 dB SNR across +-60 Hz CFO,
-# noise max 0.27 over 512 channel-blocks; threshold 0.5 sits >= 10 sigma
-# from both.  Channel tiles where every channel is hunting with no
-# prefilter hit (this block or the previous one, TrackerState.acq_hit)
-# skip the whole symbol loop and apply exact closed-form state updates
-# instead (noise-floor EMA cadence, watchdogs, symbol counters).
+# symbol timing (no symbol grid).  On synthesized frames the statistic is
+# >= 0.87 at 3 dB SNR across +-60 Hz CFO, and on noise at most 0.27 over
+# 512 channel-blocks; the threshold 0.5 sits well clear of both.
 
 ACQ_LAG = 3 * C.A_LEN      # 381 samples = 127 symbols
+ACQ_THRESHOLD = 0.5
 
 
-def acq_threshold() -> float:
-    return float(os.environ.get('DUMPHFDL_ACQ_THR', '0.5'))
-
-
-def acq_hits(x: jax.Array, threshold: float) -> jax.Array:
+def acq_hits(x: jax.Array, threshold: float = ACQ_THRESHOLD) -> jax.Array:
     """(C,) int32 preamble-energy verdict for one block of tracker input
     ((C, T) matched-filtered complex at 5400 sps)."""
     d = w = ACQ_LAG
@@ -84,161 +86,182 @@ def acq_hits(x: jax.Array, threshold: float) -> jax.Array:
     stat = num / (den + 1e-9)
     return (jnp.max(stat, axis=1) > threshold).astype(jnp.int32)
 
-# f32 state rows (sf)
-SF_TAU, SF_RATE, SF_PHI, SF_DPHI, SF_FREQ_ERR, SF_SIG, SF_FSC, SF_NF = range(8)
-SF_ROWS = 8
-# i32 state rows (si)
-(SI_FR, SI_SW, SI_RETRIES, SI_BITMASK, SI_MODE, SI_DARITY, SI_CARITY,
- SI_SEGS, SI_EQCNT, SI_TIDX, SI_DIDX, SI_FCNT, SI_SYMCNT, SI_ABSSYM,
- SI_FSTART, SI_TBAD, SI_TTOT, SI_NFCLK, SI_EVCNT, SI_OUTIDX) = range(20)
-SI_ROWS = 24
-# eq rows: taps_re 0-15, taps_im 16-31, buf_re 32-47, buf_im 48-63
-EQ_ROWS = 64
-# aux rows: K_EVENTS+1 event slots x EV_FIELDS (0-49), counters at 56-59
-AUX_CNT0 = 56
-AUX_ROWS = 64
-WIN_ROWS = 128    # rows 0-126 = bit window (oldest first), row 127 = 0
+
+# ---- packed state rows ---------------------------------------------------
+SF = ('tau', 'rate', 'phi', 'dphi', 'freq_err', 'signal_level',
+      'frame_sym_cnt', 'noise_floor')
+SI = ('fr_state', 'symbols_wanted', 'search_retries', 'bitmask', 'mode',
+      'data_arity', 'cur_arity', 'data_segments_left', 'eq_train_cnt',
+      't_idx', 'data_idx', 'frame_counter', 'symbol_cnt', 'abs_symbol',
+      'frame_start_sym', 'train_bad', 'train_total', 'nf_clk', 'out_idx')
+NEQ = C.EQ_LEN                 # 15 taps
+WIN_WORDS = 4                  # 127-bit window in 4 x 32-bit words
 
 
-def _kernel(num_steps, syms_per_tile, debug_taps,
-            act_ref, xre_ref, xim_ref, lvl_ref, bip_ref, banks_ref,
-            tbl_ref, eqi_ref,
+def _i32(v: int) -> np.int32:
+    """Unsigned 32-bit pattern -> int32 constant."""
+    return np.int32(np.uint32(v & 0xFFFFFFFF).view(np.int32))
+
+
+def _words(bits) -> list[np.int32]:
+    """127 bits (index 0 = oldest window slot) -> 4 int32 words, bit i in
+    word i // 32 at position i % 32."""
+    v = 0
+    for i, b in enumerate(np.asarray(bits, np.int64)):
+        v |= int(b) << i
+    return [_i32(v >> (32 * k)) for k in range(WIN_WORDS)]
+
+
+@functools.cache
+def _corr_words():
+    return (_words(seq.a_bits()),
+            [_words(seq.m1_bits(m)) for m in range(C.M_SHIFT_CNT)])
+
+
+@functools.cache
+def _bank_table() -> np.ndarray:
+    """(128, 8) f32: rows 0-32 the interpolation bank, rows 64-96 the
+    derivative bank, indexed by phase."""
+    h, dh = _interp_banks()                         # (33, 8) each
+    tab = np.zeros((128, ITAPS), np.float32)
+    tab[0:NPHASES + 1] = h
+    tab[64:64 + NPHASES + 1] = dh
+    return tab
+
+
+def _rne(x):
+    """Round half to even (== jnp.round) from floor, which Triton lowers."""
+    f = jnp.floor(x)
+    d = x - f
+    odd = (f - 2.0 * jnp.floor(0.5 * f)) != 0.0
+    return jnp.where((d > 0.5) | ((d == 0.5) & odd), f + 1.0, f)
+
+
+def _popcount_corr(win, ref_words):
+    """Bipolar correlation sum of the 127-bit window with a reference:
+    127 - 2 * hamming distance, as int32."""
+    pc = None
+    for w, r in zip(win, ref_words):
+        p = jax.lax.population_count(w ^ r)
+        pc = p if pc is None else pc + p
+    return C.A_LEN - 2 * pc
+
+
+def _lookup(idx, values, dtype=jnp.int32):
+    out = jnp.zeros(idx.shape, dtype)
+    for k, v in enumerate(values):
+        out = jnp.where(idx == k, v, out)
+    return out
+
+
+def _kernel(num_steps, tile, debug_taps, gated,
+            act_ref, xre_ref, xim_ref, lvl_ref, bank_ref,
             sf0_ref, si0_ref, eq0_ref, win0_ref,
-            symre_ref, symim_ref, outi_ref,
-            sf_ref, si_ref, eq_ref, win_ref, aux_ref, *tap_refs):
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        sf_ref[:, :] = sf0_ref[:, :]
-        si_ref[:, :] = si0_ref[:, :]
-        eq_ref[:, :] = eq0_ref[:, :]
-        win_ref[:, :] = win0_ref[:, :]
-        aux_ref[:, :] = jnp.zeros((AUX_ROWS, CT), jnp.float32)
+            symre_ref, symim_ref, outi_ref, sf_ref, si_ref, eq_ref, win_ref,
+            ev_ref, cnt_ref, *tap_refs):
+    pid = pl.program_id(0)
+    c0 = pid * tile
+    cs = pl.ds(c0, tile)
+    cols = c0 + jnp.arange(tile, dtype=jnp.int32)
+    zf = jnp.zeros((tile,), jnp.float32)
+    zi = jnp.zeros((tile,), jnp.int32)
 
     base_step = C.SPS / C.SYMSYNC_OUT_RATE
     bw = C.SYMSYNC_LOOP_BW
     zeta = 1.0 / np.sqrt(2.0)
     denom = 1 + 2 * zeta * bw + bw * bw
-    k1 = 4 * zeta * bw / denom
-    k2 = 4 * bw * bw / denom
+    k1 = float(4 * zeta * bw / denom)
+    k2 = float(4 * bw * bw / denom)
+    eq_init = [float(v) for v in np.real(_init_eq_taps())]
+    a_words, m1_words = _corr_words()
+    mode_segs = [m.data_segment_cnt for m in C.MODES]
+    mode_arity = [m.arity for m in C.MODES]
 
-    iota16 = jax.lax.broadcasted_iota(jnp.int32, (16, CT), 0)
-    iota8 = jax.lax.broadcasted_iota(jnp.int32, (8, CT), 0)
-    iota_ph = jax.lax.broadcasted_iota(jnp.int32, (40, CT), 0)
+    for r in range(K_EVENTS * EV_FIELDS):
+        ev_ref[r, cs] = zf
 
-    def row_f(ref, r):
-        return ref[r:r + 1, :]
+    st = {n: sf0_ref[r, cs] for r, n in enumerate(SF)}
+    st.update({n: si0_ref[r, cs] for r, n in enumerate(SI)})
+    st['taps_re'] = tuple(eq0_ref[k, cs] for k in range(NEQ))
+    st['taps_im'] = tuple(eq0_ref[NEQ + k, cs] for k in range(NEQ))
+    st['buf_re'] = tuple(eq0_ref[2 * NEQ + k, cs] for k in range(NEQ))
+    st['buf_im'] = tuple(eq0_ref[3 * NEQ + k, cs] for k in range(NEQ))
+    st['win'] = tuple(win0_ref[k, cs] for k in range(WIN_WORDS))
+    st['ev_count'] = zi
+    st['counters'] = (zi, zi, zi, zi)
 
-    def atan2(y, x):
-        """Branchless f32 atan2 (Mosaic has no atan2 primitive).
-
-        Cephes atanf reduction + degree-4 polynomial in r^2; max error
-        ~1e-7 rad, far below the costas loop's noise floor."""
-        abs_y, abs_x = jnp.abs(y), jnp.abs(x)
-        swap = abs_y > abs_x
-        num = jnp.where(swap, abs_x, abs_y)
-        den = jnp.where(swap, abs_y, abs_x)
-        r = num / jnp.maximum(den, 1e-30)
-        red = r > 0.41421356          # tan(pi/8)
-        r = jnp.where(red, (r - 1.0) / (r + 1.0), r)
-        z = r * r
-        p = ((8.05374449538e-2 * z - 1.38776856032e-1) * z
-             + 1.99777106478e-1) * z - 3.33329491539e-1
-        a = p * z * r + r
-        a = jnp.where(red, a + np.float32(np.pi / 4), a)
-        a = jnp.where(swap, np.float32(np.pi / 2) - a, a)
-        a = jnp.where(x < 0, np.float32(np.pi) - a, a)
-        return jnp.where(y < 0, -a, a)
-
-    def interp(tau, base_abs, slab_re, slab_im, want_deriv):
+    def interp(tau, base, want_deriv):
+        """Interpolate every channel at its own tau: taps j = 0..7 weight
+        input rows base + off - 3 + j (the scan's slab lanes)."""
         i = jnp.floor(tau).astype(jnp.int32)
         mu = tau - i.astype(jnp.float32)
-        off = jnp.clip(i - base_abs, 3, 8)
-        phase = jnp.round(mu * NPHASES).astype(jnp.int32)       # (1, CT)
-        oh = (iota_ph == phase).astype(jnp.float32)             # (40, CT)
-        taps = jax.lax.dot_general(                             # (16, CT)
-            banks_ref[:, :], oh,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        start = off - 3                                          # (1, CT)
-        w16 = jnp.zeros((16, CT), jnp.float32)
-        dw16 = jnp.zeros((16, CT), jnp.float32)
-        for t in range(ITAPS):
-            m = iota16 == start + t
-            w16 = jnp.where(m, taps[t:t + 1, :], w16)
+        off = jnp.clip(i - base, 3, 8)
+        phase = _rne(mu * NPHASES).astype(jnp.int32)
+        row0 = base + off - 3
+        acc = [zf] * (4 if want_deriv else 2)
+        for j in range(ITAPS):
+            xr = xre_ref[row0 + j, cols]
+            xi = xim_ref[row0 + j, cols]
+            h = bank_ref[phase, j]
+            acc[0] = acc[0] + xr * h
+            acc[1] = acc[1] + xi * h
             if want_deriv:
-                dw16 = jnp.where(m, taps[8 + t:9 + t, :], dw16)
-        y_re = jnp.sum(slab_re * w16, axis=0, keepdims=True)
-        y_im = jnp.sum(slab_im * w16, axis=0, keepdims=True)
-        if not want_deriv:
-            return y_re, y_im
-        yd_re = jnp.sum(slab_re * dw16, axis=0, keepdims=True)
-        yd_im = jnp.sum(slab_im * dw16, axis=0, keepdims=True)
-        return y_re, y_im, yd_re, yd_im
+                dh = bank_ref[phase + 64, j]
+                acc[2] = acc[2] + xr * dh
+                acc[3] = acc[3] + xi * dh
+        return tuple(acc)
 
-    def body(t_local, _):
-        t = j * syms_per_tile + t_local
-        base_abs = 3 * t + SLAB_BASE_OFF
-        slab_re = xre_ref[0, pl.ds(3 * t_local, 16), :]          # (16, CT)
-        slab_im = xim_ref[0, pl.ds(3 * t_local, 16), :]
+    def costas_step(phi, dphi):
+        phi = phi + dphi
+        return jnp.where(phi > np.pi, phi - 2 * np.pi,
+                         jnp.where(phi < -np.pi, phi + 2 * np.pi, phi))
 
-        tau = row_f(sf_ref, SF_TAU)
-        # ===== even half-step: interpolate, ML TED, costas step ============
-        ye_re, ye_im, yd_re, yd_im = interp(tau, base_abs, slab_re, slab_im,
-                                            True)
+    def body(t, s):
+        base = 3 * t + SLAB_BASE_OFF
+        fr_in = s['fr_state']
+        tau = s['tau']
+        # ===== even half-step: interpolate, ML TED, costas step ========
+        ye_re, ye_im, yd_re, yd_im = interp(tau, base, True)
         q = jnp.clip(ye_re * yd_re + ye_im * yd_im, -1.0, 1.0)
-        rate = row_f(sf_ref, SF_RATE) + k2 * q
+        rate = s['rate'] + k2 * q
         tau_o = tau + base_step + k1 * q + rate
-
-        def costas_step(phi, dphi):
-            phi = phi + dphi
-            return jnp.where(phi > np.pi, phi - 2 * np.pi,
-                             jnp.where(phi < -np.pi, phi + 2 * np.pi, phi))
-
-        st_dphi = row_f(sf_ref, SF_DPHI)
-        fr_in = si_ref[SI_FR:SI_FR + 1, :]
-        phi = costas_step(row_f(sf_ref, SF_PHI), st_dphi)
+        phi = costas_step(s['phi'], s['dphi'])
         ce, se = jnp.cos(phi), jnp.sin(phi)
         ve_re = ye_re * ce + ye_im * se            # y * exp(-i phi)
         ve_im = ye_im * ce - ye_re * se
-        runaway = (jnp.abs(st_dphi) > C.COSTAS_DPHI_RESET_LIMIT) \
+        runaway = (jnp.abs(s['dphi']) > C.COSTAS_DPHI_RESET_LIMIT) \
             & (fr_in == A1_SEARCH)
         phi = jnp.where(runaway, 0.0, phi)
-        dphi = jnp.where(runaway, 0.0, st_dphi)
+        dphi = jnp.where(runaway, 0.0, s['dphi'])
         rate = jnp.where(runaway, 0.0, rate)
-        # ===== odd half-step ===============================================
-        yo_re, yo_im = interp(tau_o, base_abs, slab_re, slab_im, False)
+        # ===== odd half-step ===========================================
+        yo_re, yo_im = interp(tau_o, base, False)
         tau_next = tau_o + base_step + rate
         phi = costas_step(phi, dphi)
         co, so = jnp.cos(phi), jnp.sin(phi)
         vo_re = yo_re * co + yo_im * so
         vo_im = yo_im * co - yo_re * so
-        lvl = lvl_ref[pl.ds(t_local, 1), :]                      # (1, CT)
+        lvl = lvl_ref[t, cs]
 
-        # equalizer buffer shift by 2, push v_e then v_o
-        tre = eq_ref[0:16, :]
-        tim = eq_ref[16:32, :]
-        b0re, b0im = eq_ref[32:48, :], eq_ref[48:64, :]
-        bre = jnp.concatenate([b0re[2:, :], b0re[:2, :]], axis=0)
-        bim = jnp.concatenate([b0im[2:, :], b0im[:2, :]], axis=0)
-        m13 = iota16 == 13
-        m14 = iota16 == 14
-        m15 = iota16 == 15
-        bre = jnp.where(m13, ve_re, jnp.where(m14, vo_re, bre))
-        bim = jnp.where(m13, ve_im, jnp.where(m14, vo_im, bim))
-        bre = jnp.where(m15, 0.0, bre)
-        bim = jnp.where(m15, 0.0, bim)
+        # equalizer delay line: shift by 2, push v_e then v_o
+        bre = s['buf_re'][2:] + (ve_re, vo_re)
+        bim = s['buf_im'][2:] + (ve_im, vo_im)
+        tre, tim = s['taps_re'], s['taps_im']
 
         # ---- symbol processing ----
-        yq_re = jnp.sum(tre * bre - tim * bim, axis=0, keepdims=True)
-        yq_im = jnp.sum(tre * bim + tim * bre, axis=0, keepdims=True)
-        theta = atan2(yq_im, yq_re)
-        arity = si_ref[SI_CARITY:SI_CARITY + 1, :]
-        err_b = theta - jnp.round(theta / np.pi) * np.pi
+        yq_re = zf
+        yq_im = zf
+        den = zf
+        for k in range(NEQ):
+            yq_re = yq_re + (tre[k] * bre[k] - tim[k] * bim[k])
+            yq_im = yq_im + (tre[k] * bim[k] + tim[k] * bre[k])
+            den = den + (bre[k] * bre[k] + bim[k] * bim[k])
+        theta = jnp.arctan2(yq_im, yq_re)
+        arity = s['cur_arity']
+        err_b = theta - _rne(theta / np.pi) * np.pi
         tq = theta - np.pi / 4
-        err_q = tq - jnp.round(tq / (np.pi / 2)) * (np.pi / 2)
-        err_8 = theta - jnp.round(theta / (np.pi / 4)) * (np.pi / 4)
+        err_q = tq - _rne(tq / (np.pi / 2)) * (np.pi / 2)
+        err_8 = theta - _rne(theta / (np.pi / 4)) * (np.pi / 4)
         perr = jnp.where(arity == 1, err_b,
                          jnp.where(arity == 2, err_q, err_8))
         bit_raw = (yq_re < 0).astype(jnp.int32)
@@ -248,70 +271,62 @@ def _kernel(num_steps, syms_per_tile, debug_taps,
 
         # EQ training (hfdl.c:730-733)
         in_train = fr_in == EQ_TRAIN
-        t_i = jnp.clip(si_ref[SI_TIDX:SI_TIDX + 1, :], 0, C.T_LEN - 1)
-        oh_t = (iota16 == t_i).astype(jnp.float32)               # (16, CT)
-        tlook = jax.lax.dot_general(                             # (8, CT)
-            tbl_ref[:, 0:16], oh_t,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        t_bip_v = tlook[0:1, :]
-        t_bit_v = tlook[1:2, :].astype(jnp.int32)
-        bitmask = si_ref[SI_BITMASK:SI_BITMASK + 1, :]
-        d_re = t_bip_v * jnp.where(bitmask != 0, -1.0, 1.0)
+        t_i = jnp.clip(s['t_idx'], 0, C.T_LEN - 1)
+        t_bit = jax.lax.shift_right_logical(
+            jnp.full((tile,), C.T_BITS_VALUE, jnp.int32),
+            C.T_LEN - 1 - t_i) & 1
+        bitmask = s['bitmask']
+        d_re = (1.0 - 2.0 * t_bit.astype(jnp.float32)) \
+            * jnp.where(bitmask != 0, -1.0, 1.0)
         e_re = d_re - yq_re
         e_im = -yq_im
-        den = jnp.sum(bre * bre + bim * bim, axis=0, keepdims=True) + 1e-6
+        den = den + 1e-6
         g_re = C.EQ_BANDWIDTH * e_re / den
         g_im = C.EQ_BANDWIDTH * e_im / den
-        # taps += g * conj(buf)
-        upd_re = g_re * bre + g_im * bim
-        upd_im = g_im * bre - g_re * bim
-        tre = jnp.where(in_train, tre + upd_re, tre)
-        tim = jnp.where(in_train, tim + upd_im, tim)
-        t_idx = jnp.where(in_train, si_ref[SI_TIDX:SI_TIDX + 1, :] + 1,
-                          si_ref[SI_TIDX:SI_TIDX + 1, :])
+        tre = tuple(jnp.where(in_train, tre[k] + (g_re * bre[k] + g_im * bim[k]),
+                              tre[k]) for k in range(NEQ))
+        tim = tuple(jnp.where(in_train, tim[k] + (g_im * bre[k] - g_re * bim[k]),
+                              tim[k]) for k in range(NEQ))
+        t_idx = jnp.where(in_train, s['t_idx'] + 1, s['t_idx'])
 
         # training-bit error count
         tbit = bit_raw ^ (bitmask != 0).astype(jnp.int32)
-        t_err = (tbit != t_bit_v).astype(jnp.int32)
-        train_bad = si_ref[SI_TBAD:SI_TBAD + 1, :] \
-            + jnp.where(in_train, t_err, 0)
-        train_total = si_ref[SI_TTOT:SI_TTOT + 1, :] \
-            + jnp.where(in_train, 1, 0)
+        t_err = (tbit != t_bit).astype(jnp.int32)
+        train_bad = s['train_bad'] + jnp.where(in_train, t_err, 0)
+        train_total = s['train_total'] + jnp.where(in_train, 1, 0)
 
-        # bit window push during bit-emitting states
+        # bit window push during bit-emitting states: drop the oldest bit
+        # (bit 0), append tbit as bit 126
         emit_bits = fr_in <= M1_SEARCH
-        wbit = 1.0 - 2.0 * tbit.astype(jnp.float32)
-        win = win_ref[:, :]
-        win_sh = jnp.concatenate([win[1:, :], win[:1, :]], axis=0)
-        iota_w = jax.lax.broadcasted_iota(jnp.int32, (WIN_ROWS, CT), 0)
-        win_sh = jnp.where(iota_w == 126, wbit, win_sh)
-        win_sh = jnp.where(iota_w == 127, 0.0, win_sh)
-        win = jnp.where(emit_bits, win_sh, win)
-        win_ref[:, :] = win
+        w = s['win']
+        sh = [jax.lax.shift_right_logical(w[k], 1)
+              | jax.lax.shift_left(w[k + 1], 31) for k in range(3)]
+        sh.append(jax.lax.shift_right_logical(w[3], 1)
+                  | jax.lax.shift_left(tbit, 30))
+        win = tuple(jnp.where(emit_bits, sh[k], w[k]) for k in range(4))
 
         # data symbol emission
         in_data = (fr_in == DATA_1) | (fr_in == DATA_2)
-        out_data_idx = si_ref[SI_DIDX:SI_DIDX + 1, :]
+        out_data_idx = s['data_idx']
         data_idx = jnp.where(in_data, out_data_idx + 1, out_data_idx)
 
         # signal level averaging inside a frame
         in_frame = fr_in > A1_SEARCH
-        fsc = row_f(sf_ref, SF_FSC)
-        sig0 = row_f(sf_ref, SF_SIG)
+        fsc = s['frame_sym_cnt']
+        sig0 = s['signal_level']
         sig = jnp.where(in_frame, (sig0 * fsc + lvl) / (fsc + 1.0), sig0)
         fsc = jnp.where(in_frame, fsc + 1.0, fsc)
 
         # noise floor EMA while hunting
-        nf_clk = si_ref[SI_NFCLK:SI_NFCLK + 1, :] + 1
+        nf_clk = s['nf_clk'] + 1
         nf_due = (nf_clk >= 85) & (fr_in == A1_SEARCH)
-        nf0 = row_f(sf_ref, SF_NF)
+        nf0 = s['noise_floor']
         nf = jnp.where(nf_due,
                        0.65 * nf0 + 0.35 * jnp.minimum(nf0, lvl) + 1e-6, nf0)
         nf_clk = jnp.where(nf_due, 0, nf_clk)
 
-        abs_symbol = si_ref[SI_ABSSYM:SI_ABSSYM + 1, :] + 1
-        symbol_cnt = si_ref[SI_SYMCNT:SI_SYMCNT + 1, :] + 1
+        abs_symbol = s['abs_symbol'] + 1
+        symbol_cnt = s['symbol_cnt'] + 1
         stale = (symbol_cnt >= C.MAX_SYMBOLS_WITHOUT_FRAME) \
             & (fr_in == A1_SEARCH)
         phi = jnp.where(stale, 0.0, phi)
@@ -319,428 +334,315 @@ def _kernel(num_steps, syms_per_tile, debug_taps,
         rate = jnp.where(stale, 0.0, rate)
         symbol_cnt = jnp.where(stale, 0, symbol_cnt)
 
-        # ---- framer FSM (shared single-source logic, tracker.py) ----
-        corr = jax.lax.dot_general(                              # (16, CT)
-            bip_ref[:, :], win,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32) / C.A_LEN
-        corr_a = corr[0:1, :]
-        cm = jnp.abs(corr[1:9, :])                               # (8, CT)
-        corr_m1 = jnp.max(cm, axis=0, keepdims=True)
-        m1_match = jnp.min(jnp.where(cm == corr_m1, iota8, 8),
-                           axis=0, keepdims=True)
-
-        def mode_lookup(m):
-            """m1_match -> (segment count, arity): one-hot matmul against
-            the per-mode constant table (per-lane gathers are slow)."""
-            oh_m = (iota8 == m).astype(jnp.float32)              # (8, CT)
-            mlook = jax.lax.dot_general(                         # (8, CT)
-                tbl_ref[:, 16:24], oh_m,
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            return (mlook[0:1, :].astype(jnp.int32),
-                    mlook[1:2, :].astype(jnp.int32))
+        # ---- correlators: exact integer popcounts ----
+        corr_a = _popcount_corr(win, a_words).astype(jnp.float32) / C.A_LEN
+        corr_m1 = None
+        m1_match = zi
+        for m, ref_words in enumerate(m1_words):
+            cm = jnp.abs(_popcount_corr(win, ref_words))
+            if corr_m1 is None:
+                corr_m1 = cm
+            else:
+                better = cm > corr_m1
+                m1_match = jnp.where(better, m, m1_match)
+                corr_m1 = jnp.maximum(cm, corr_m1)
+        corr_m1 = corr_m1.astype(jnp.float32) / C.A_LEN
 
         upd, flags = framer_fsm_step(
-            fr=fr_in, sw=si_ref[SI_SW:SI_SW + 1, :],
-            retries=si_ref[SI_RETRIES:SI_RETRIES + 1, :],
-            bitmask=bitmask, mode=si_ref[SI_MODE:SI_MODE + 1, :],
-            data_arity=si_ref[SI_DARITY:SI_DARITY + 1, :],
-            cur_arity=arity, segs_left=si_ref[SI_SEGS:SI_SEGS + 1, :],
-            eq_cnt=si_ref[SI_EQCNT:SI_EQCNT + 1, :],
-            t_idx=t_idx, data_idx=data_idx,
-            freq_err=row_f(sf_ref, SF_FREQ_ERR),
-            frame_start=si_ref[SI_FSTART:SI_FSTART + 1, :],
+            fr=fr_in, sw=s['symbols_wanted'], retries=s['search_retries'],
+            bitmask=bitmask, mode=s['mode'], data_arity=s['data_arity'],
+            cur_arity=arity, segs_left=s['data_segments_left'],
+            eq_cnt=s['eq_train_cnt'], t_idx=t_idx, data_idx=data_idx,
+            freq_err=s['freq_err'], frame_start=s['frame_start_sym'],
             sig=sig, fsc=fsc, lvl=lvl, dphi=dphi, abs_symbol=abs_symbol,
             train_bad=train_bad, train_total=train_total,
             corr_a=corr_a, corr_m1=corr_m1, m1_match=m1_match,
-            mode_lookup=mode_lookup,
+            mode_lookup=lambda m: (_lookup(m, mode_segs),
+                                   _lookup(m, mode_arity)),
             as_flag=lambda b: b.astype(jnp.int32))
 
-        # --- frame completion event -> event table rows of aux_ref ---
+        # --- frame completion event -> event table (masked scatter) ---
         emit = flags['frame_done']
-        ev_count = si_ref[SI_EVCNT:SI_EVCNT + 1, :]
-        frame_counter = si_ref[SI_FCNT:SI_FCNT + 1, :]
-        fields = [jnp.ones((1, CT), jnp.float32),
-                  upd['mode'].astype(jnp.float32),
-                  flags['ev_bitmask'].astype(jnp.float32),
-                  (frame_counter & (C.FRAME_PARITY_SLOTS - 1))
-                  .astype(jnp.float32),
-                  upd['freq_err'], upd['sig'], nf,
-                  flags['ev_train_bad'].astype(jnp.float32),
-                  flags['ev_train_total'].astype(jnp.float32),
-                  upd['frame_start'].astype(jnp.float32),
-                  (upd['frame_start'] & ((1 << 22) - 1))
-                  .astype(jnp.float32)]
-        slot = jnp.where(emit, jnp.minimum(ev_count, K_EVENTS), K_EVENTS + 1)
-        for s in range(K_EVENTS + 1):
-            hit_s = slot == s
-            for f in range(EV_FIELDS):
-                r = s * EV_FIELDS + f
-                aux_ref[r:r + 1, :] = jnp.where(hit_s, fields[f],
-                                                aux_ref[r:r + 1, :])
+        ev_count = s['ev_count']
+        frame_counter = s['frame_counter']
+        parity = frame_counter & (C.FRAME_PARITY_SLOTS - 1)
+
+        def store_events():
+            fields = (jnp.ones((tile,), jnp.float32),
+                      upd['mode'].astype(jnp.float32),
+                      flags['ev_bitmask'].astype(jnp.float32),
+                      parity.astype(jnp.float32),
+                      upd['freq_err'], upd['sig'], nf,
+                      flags['ev_train_bad'].astype(jnp.float32),
+                      flags['ev_train_total'].astype(jnp.float32),
+                      upd['frame_start'].astype(jnp.float32),
+                      (upd['frame_start'] & ((1 << 22) - 1))
+                      .astype(jnp.float32))
+            ok = emit & (ev_count < K_EVENTS)
+            row0 = jnp.minimum(ev_count, K_EVENTS - 1) * EV_FIELDS
+            for f, v in enumerate(fields):
+                plgpu.store(ev_ref.at[row0 + f, cols], v, mask=ok)
+
+        jax.lax.cond(jnp.max(emit.astype(jnp.int32)) > 0, store_events,
+                     lambda: None)
         ev_count = ev_count + emit.astype(jnp.int32)
         ev_dropped = emit & (ev_count > K_EVENTS)
-        for r, flag in ((0, flags['a2_hit']), (1, flags['m1_hit']),
-                        (2, flags['m1_fail']), (3, ev_dropped)):
-            aux_ref[AUX_CNT0 + r:AUX_CNT0 + r + 1, :] = \
-                aux_ref[AUX_CNT0 + r:AUX_CNT0 + r + 1, :] \
-                + flag.astype(jnp.float32)
+        counters = tuple(cnt + f.astype(jnp.int32) for cnt, f in zip(
+            s['counters'], (flags['a2_hit'], flags['m1_hit'],
+                            flags['m1_fail'], ev_dropped)))
         frame_counter_new = jnp.where(emit, frame_counter + 1, frame_counter)
         symbol_cnt = jnp.where(emit, 0, symbol_cnt)
 
         # --- framer reset, non-scalar part (the FSM reset the scalars) ---
         do_reset = flags['do_reset']
-        tre = jnp.where(do_reset, eqi_ref[:, :], tre)
-        tim = jnp.where(do_reset, 0.0, tim)
+        tre = tuple(jnp.where(do_reset, eq_init[k], tre[k])
+                    for k in range(NEQ))
+        tim = tuple(jnp.where(do_reset, 0.0, tim[k]) for k in range(NEQ))
         rate = jnp.where(do_reset, 0.0, rate)
 
-        # ---- write back state ----
-        eq_ref[0:16, :] = tre
-        eq_ref[16:32, :] = tim
-        eq_ref[32:48, :] = bre
-        eq_ref[48:64, :] = bim
-        for r, v in ((SF_TAU, tau_next), (SF_RATE, rate), (SF_PHI, phi),
-                     (SF_DPHI, dphi), (SF_FREQ_ERR, upd['freq_err']),
-                     (SF_SIG, upd['sig']),
-                     (SF_FSC, upd['fsc']), (SF_NF, nf)):
-            sf_ref[r:r + 1, :] = v
-        for r, v in ((SI_FR, upd['fr']), (SI_SW, upd['sw']),
-                     (SI_RETRIES, upd['retries']),
-                     (SI_BITMASK, upd['bitmask']), (SI_MODE, upd['mode']),
-                     (SI_DARITY, upd['data_arity']),
-                     (SI_CARITY, upd['cur_arity']),
-                     (SI_SEGS, upd['segs_left']), (SI_EQCNT, upd['eq_cnt']),
-                     (SI_TIDX, upd['t_idx']), (SI_DIDX, upd['data_idx']),
-                     (SI_FCNT, frame_counter_new), (SI_SYMCNT, symbol_cnt),
-                     (SI_ABSSYM, abs_symbol), (SI_FSTART, upd['frame_start']),
-                     (SI_TBAD, upd['train_bad']),
-                     (SI_TTOT, upd['train_total']),
-                     (SI_NFCLK, nf_clk), (SI_EVCNT, ev_count),
-                     (SI_OUTIDX, si_ref[SI_OUTIDX:SI_OUTIDX + 1, :] + 2)):
-            si_ref[r:r + 1, :] = v
-
         # ---- per-symbol outputs ----
-        symre_ref[pl.ds(t_local, 1), :] = yq_re
-        symim_ref[pl.ds(t_local, 1), :] = yq_im
+        symre_ref[t, cs] = yq_re
+        symim_ref[t, cs] = yq_im
+        outi_ref[t, cs] = (in_data.astype(jnp.int32) + 2 * parity
+                           + 2 * C.FRAME_PARITY_SLOTS * out_data_idx)
         if debug_taps:       # --datadumps loop internals (dumpfile.c taps)
-            tap_refs[0][pl.ds(t_local, 1), :] = dphi
-            tap_refs[1][pl.ds(t_local, 1), :] = err
-            tap_refs[2][pl.ds(t_local, 1), :] = tau - jnp.floor(tau)
-        packed = (in_data.astype(jnp.int32)
-                  + 2 * (frame_counter & (C.FRAME_PARITY_SLOTS - 1))
-                  + 2 * C.FRAME_PARITY_SLOTS * out_data_idx)
-        outi_ref[pl.ds(t_local, 1), :] = packed
-        return 0
+            tap_refs[0][t, cs] = dphi
+            tap_refs[1][t, cs] = err
+            tap_refs[2][t, cs] = tau - jnp.floor(tau)
 
-    n_this = jnp.minimum(syms_per_tile, num_steps - j * syms_per_tile)
-    active = act_ref[pl.program_id(0), 0] != 0
+        return dict(
+            tau=tau_next, rate=rate, phi=phi, dphi=dphi,
+            freq_err=upd['freq_err'], signal_level=upd['sig'],
+            frame_sym_cnt=upd['fsc'], noise_floor=nf,
+            fr_state=upd['fr'], symbols_wanted=upd['sw'],
+            search_retries=upd['retries'], bitmask=upd['bitmask'],
+            mode=upd['mode'], data_arity=upd['data_arity'],
+            cur_arity=upd['cur_arity'], data_segments_left=upd['segs_left'],
+            eq_train_cnt=upd['eq_cnt'], t_idx=upd['t_idx'],
+            data_idx=upd['data_idx'], frame_counter=frame_counter_new,
+            symbol_cnt=symbol_cnt, abs_symbol=abs_symbol,
+            frame_start_sym=upd['frame_start'], train_bad=upd['train_bad'],
+            train_total=upd['train_total'], nf_clk=nf_clk,
+            out_idx=s['out_idx'] + 2,
+            taps_re=tre, taps_im=tim, buf_re=bre, buf_im=bim, win=win,
+            ev_count=ev_count, counters=counters)
 
-    @pl.when(active)
-    def _run_full():
-        jax.lax.fori_loop(0, n_this, body, 0)
+    def write_state(s):
+        for r, n in enumerate(SF):
+            sf_ref[r, cs] = s[n]
+        for r, n in enumerate(SI):
+            si_ref[r, cs] = s[n]
+        for k in range(NEQ):
+            eq_ref[k, cs] = s['taps_re'][k]
+            eq_ref[NEQ + k, cs] = s['taps_im'][k]
+            eq_ref[2 * NEQ + k, cs] = s['buf_re'][k]
+            eq_ref[3 * NEQ + k, cs] = s['buf_im'][k]
+        for k in range(WIN_WORDS):
+            win_ref[k, cs] = s['win'][k]
+        for k in range(4):
+            cnt_ref[k, cs] = s['counters'][k].astype(jnp.float32)
 
-    @pl.when(jnp.logical_not(active))
-    def _run_idle():
-        # Exact closed-form updates for an all-hunting, no-signal tile
-        # (every channel in A1_SEARCH): identical values to n_this loop
-        # iterations for everything frame-detection depends on --
-        # abs_symbol/out_idx clocks, noise-floor EMA at its exact
-        # cadence and lvl samples, hunt watchdog with its resets.
-        # tau/phi follow the no-noise limit of the loop (their
-        # noise-driven jitter carries no information; both decoders
-        # reset them on every failed acquisition anyway).
-        zf = jnp.zeros((syms_per_tile, CT), jnp.float32)
-        symre_ref[:, :] = zf
-        symim_ref[:, :] = zf
-        outi_ref[:, :] = jnp.zeros((syms_per_tile, CT), jnp.int32)
-        for r in tap_refs:
-            r[:, :] = zf
-        nf32 = n_this.astype(jnp.float32)
-        # hunt watchdog (hfdl.c:746-752): resets once when the counter
-        # crosses MAX (n_this << MAX so at most one crossing)
-        sc = si_ref[SI_SYMCNT:SI_SYMCNT + 1, :]
-        sc2 = sc + n_this
-        crossed = sc2 >= C.MAX_SYMBOLS_WITHOUT_FRAME
-        si_ref[SI_SYMCNT:SI_SYMCNT + 1, :] = \
-            jnp.where(crossed, sc2 - C.MAX_SYMBOLS_WITHOUT_FRAME, sc2)
-        # timing advance at the nominal rate; the carried rate holds
-        # until (and unless) the watchdog zeroes it mid-tile
-        k_cross = jnp.clip(C.MAX_SYMBOLS_WITHOUT_FRAME - sc, 0, n_this) \
-            .astype(jnp.float32)
-        rate = sf_ref[SF_RATE:SF_RATE + 1, :]
-        sf_ref[SF_TAU:SF_TAU + 1, :] = sf_ref[SF_TAU:SF_TAU + 1, :] \
-            + 2.0 * base_step * nf32 + 2.0 * rate * k_cross
-        for r in (SF_PHI, SF_DPHI, SF_RATE):
-            sf_ref[r:r + 1, :] = jnp.where(crossed, 0.0,
-                                           sf_ref[r:r + 1, :])
-        si_ref[SI_ABSSYM:SI_ABSSYM + 1, :] = \
-            si_ref[SI_ABSSYM:SI_ABSSYM + 1, :] + n_this
-        si_ref[SI_OUTIDX:SI_OUTIDX + 1, :] = \
-            si_ref[SI_OUTIDX:SI_OUTIDX + 1, :] + 2 * n_this
-        # noise-floor EMA at its exact cadence (hfdl.c:699-706): update
-        # m lands on local symbol t_m = 85*(m+1) - nf_clk - 1, using
-        # that symbol's lvl sample, exactly like the loop
-        nfclk = si_ref[SI_NFCLK:SI_NFCLK + 1, :]
-        nf = sf_ref[SF_NF:SF_NF + 1, :]
-        iota_s = jax.lax.broadcasted_iota(jnp.int32, (syms_per_tile, CT), 0)
-        lvl_tile = lvl_ref[:, :]
-        for m in range(syms_per_tile // 85 + 1):
-            t_m = 85 * (m + 1) - nfclk - 1
-            valid = t_m < n_this
-            lvl_sel = jnp.sum(jnp.where(iota_s == t_m, lvl_tile, 0.0),
-                              axis=0, keepdims=True)
-            nf = jnp.where(valid,
-                           0.65 * nf + 0.35 * jnp.minimum(nf, lvl_sel)
-                           + 1e-6, nf)
-        sf_ref[SF_NF:SF_NF + 1, :] = nf
-        si_ref[SI_NFCLK:SI_NFCLK + 1, :] = \
-            nfclk + n_this - 85 * ((nfclk + n_this) // 85)
+    def run_full():
+        write_state(jax.lax.fori_loop(0, num_steps, body, st))
+
+    def run_idle():
+        write_state(_idle_update(st, num_steps, tile, cs, lvl_ref,
+                                 (symre_ref, symim_ref, outi_ref)
+                                 + tuple(tap_refs)))
+
+    if gated:
+        jax.lax.cond(act_ref[pid] != 0, run_full, run_idle)
+    else:
+        run_full()
+
+
+def _idle_update(st, n, tile, cs, lvl_ref, step_refs):
+    """Exact closed-form update of an all-hunting, no-signal tile: the
+    same values as n loop iterations for everything frame detection
+    depends on -- abs_symbol/out_idx clocks, the noise-floor EMA at its
+    exact cadence and lvl samples, the hunt watchdog with its resets.
+    tau/phi follow the no-noise limit of the loop (their noise-driven
+    jitter carries no information; both trackers reset them on every
+    failed acquisition anyway)."""
+    base_step = C.SPS / C.SYMSYNC_OUT_RATE
+    zf = jnp.zeros((tile,), jnp.float32)
+
+    def zero_row(t, carry):
+        for r in step_refs:
+            r[t, cs] = zf.astype(r.dtype)
+        return carry
+
+    jax.lax.fori_loop(0, n, zero_row, None)
+    s = dict(st)
+    # hunt watchdog (hfdl.c:746-752): at most one crossing per block
+    # (n << MAX_SYMBOLS_WITHOUT_FRAME)
+    sc = s['symbol_cnt']
+    sc2 = sc + n
+    crossed = sc2 >= C.MAX_SYMBOLS_WITHOUT_FRAME
+    s['symbol_cnt'] = jnp.where(crossed, sc2 - C.MAX_SYMBOLS_WITHOUT_FRAME,
+                                sc2)
+    # timing advance at the nominal rate; the carried rate holds until
+    # (and unless) the watchdog zeroes it mid-block
+    k_cross = jnp.clip(C.MAX_SYMBOLS_WITHOUT_FRAME - sc, 0, n) \
+        .astype(jnp.float32)
+    s['tau'] = s['tau'] + 2.0 * base_step * n + 2.0 * s['rate'] * k_cross
+    for name in ('phi', 'dphi', 'rate'):
+        s[name] = jnp.where(crossed, 0.0, s[name])
+    s['abs_symbol'] = s['abs_symbol'] + n
+    s['out_idx'] = s['out_idx'] + 2 * n
+    # noise-floor EMA at its exact cadence (hfdl.c:699-706): update m
+    # lands on symbol t_m = 85*(m+1) - nf_clk - 1, using that symbol's
+    # lvl sample, exactly like the loop
+    nfclk = s['nf_clk']
+    cols = jnp.arange(tile, dtype=jnp.int32) + cs.start
+
+    def ema(m, nf):
+        t_m = 85 * (m + 1) - nfclk - 1
+        lv = lvl_ref[jnp.clip(t_m, 0, n - 1), cols]
+        return jnp.where(t_m < n,
+                         0.65 * nf + 0.35 * jnp.minimum(nf, lv) + 1e-6, nf)
+
+    s['noise_floor'] = jax.lax.fori_loop(0, n // 85 + 1, ema,
+                                         s['noise_floor'])
+    s['nf_clk'] = jax.lax.rem(nfclk + n, 85)
+    return s
 
 
 def _pack_state(state: TrackerState, c_pad: int):
     """TrackerState (C,)-vectors -> row-packed (rows, c_pad) planes."""
     c = state.tau.shape[0]
     if c_pad != c:
-        pad = jax.tree.map(lambda a, b: jnp.concatenate([a, b], axis=0),
-                           state, tracker_init(c_pad - c))
-    else:
-        pad = state
-    zi = jnp.zeros((c_pad,), jnp.int32)
-    sf = jnp.stack([pad.tau, pad.rate, pad.phi, pad.dphi, pad.freq_err,
-                    pad.signal_level, pad.frame_sym_cnt, pad.noise_floor])
-    si = jnp.stack([pad.fr_state, pad.symbols_wanted, pad.search_retries,
-                    pad.bitmask.astype(jnp.int32), pad.mode, pad.data_arity,
-                    pad.cur_arity, pad.data_segments_left, pad.eq_train_cnt,
-                    pad.t_idx, pad.data_idx, pad.frame_counter,
-                    pad.symbol_cnt, pad.abs_symbol, pad.frame_start_sym,
-                    pad.train_bad, pad.train_total, pad.nf_clk,
-                    zi, pad.out_idx] + [zi] * (SI_ROWS - 20))
-    zrow = jnp.zeros((1, c_pad), jnp.float32)
-    pad16 = lambda a: jnp.concatenate([a.T, zrow], axis=0)  # (15,C)->(16,C)
-    eq = jnp.concatenate([pad16(jnp.real(pad.eq_taps)),
-                          pad16(jnp.imag(pad.eq_taps)),
-                          pad16(jnp.real(pad.eq_buf)),
-                          pad16(jnp.imag(pad.eq_buf))], axis=0)
-    win = jnp.concatenate([pad.window.T, zrow], axis=0)     # (128, C)
+        state = jax.tree.map(lambda a, b: jnp.concatenate([a, b], axis=0),
+                             state, tracker_init(c_pad - c))
+    sf = jnp.stack([getattr(state, n) for n in SF])
+    si = jnp.stack([getattr(state, n).astype(jnp.int32) for n in SI])
+    eq = jnp.concatenate([jnp.real(state.eq_taps).T, jnp.imag(state.eq_taps).T,
+                          jnp.real(state.eq_buf).T, jnp.imag(state.eq_buf).T],
+                         axis=0)
+    bits = (state.window < 0).astype(jnp.uint32)                # (C, 127)
+    bits = jnp.pad(bits, ((0, 0), (0, 32 * WIN_WORDS - C.A_LEN)))
+    weights = jnp.left_shift(jnp.uint32(1), jnp.arange(32, dtype=jnp.uint32))
+    words = jnp.sum(bits.reshape(c_pad, WIN_WORDS, 32) * weights, axis=-1,
+                    dtype=jnp.uint32)
+    win = jax.lax.bitcast_convert_type(words, jnp.int32).T      # (4, C)
     return sf, si, eq, win
 
 
 def _unpack_state(sf, si, eq, win, c: int) -> TrackerState:
+    words = jax.lax.bitcast_convert_type(win[:, :c].T, jnp.uint32)
+    bits = (words[:, :, None] >> jnp.arange(32, dtype=jnp.uint32)) & 1
+    window = 1.0 - 2.0 * bits.reshape(c, 32 * WIN_WORDS)[:, :C.A_LEN] \
+        .astype(jnp.float32)
+    fields = {n: sf[r, :c] for r, n in enumerate(SF)}
+    fields.update({n: si[r, :c] for r, n in enumerate(SI)})
+    fields['bitmask'] = fields['bitmask'] != 0
     return TrackerState(
-        tau=sf[SF_TAU, :c], rate=sf[SF_RATE, :c], out_idx=si[SI_OUTIDX, :c],
-        phi=sf[SF_PHI, :c], dphi=sf[SF_DPHI, :c],
-        eq_taps=(eq[0:15, :c] + 1j * eq[16:31, :c]).T.astype(jnp.complex64),
-        eq_buf=(eq[32:47, :c] + 1j * eq[48:63, :c]).T.astype(jnp.complex64),
-        window=win[0:127, :c].T,
-        fr_state=si[SI_FR, :c], symbols_wanted=si[SI_SW, :c],
-        search_retries=si[SI_RETRIES, :c],
-        bitmask=si[SI_BITMASK, :c] != 0, mode=si[SI_MODE, :c],
-        data_arity=si[SI_DARITY, :c], cur_arity=si[SI_CARITY, :c],
-        data_segments_left=si[SI_SEGS, :c], eq_train_cnt=si[SI_EQCNT, :c],
-        t_idx=si[SI_TIDX, :c], data_idx=si[SI_DIDX, :c],
-        frame_counter=si[SI_FCNT, :c], symbol_cnt=si[SI_SYMCNT, :c],
-        abs_symbol=si[SI_ABSSYM, :c], frame_start_sym=si[SI_FSTART, :c],
-        train_bad=si[SI_TBAD, :c], train_total=si[SI_TTOT, :c],
-        freq_err=sf[SF_FREQ_ERR, :c], signal_level=sf[SF_SIG, :c],
-        frame_sym_cnt=sf[SF_FSC, :c], noise_floor=sf[SF_NF, :c],
-        nf_clk=si[SI_NFCLK, :c])
-
-
-@functools.cache
-def _const_tables():
-    """Host-side constant inputs for the kernel."""
-    bip = np.zeros((16, 128), np.float32)
-    bip[0, :C.A_LEN] = seq.bipolar(seq.a_bits())
-    bip[1:9, :C.A_LEN] = seq.bipolar(seq.m1_bits_all())
-    h, dh = _interp_banks()                       # (33, 8) each
-    banks = np.zeros((16, 40), np.float32)
-    banks[0:8, :NPHASES + 1] = h.T
-    banks[8:16, :NPHASES + 1] = dh.T
-    tbl = np.zeros((8, 24), np.float32)
-    tbl[0, :C.T_LEN] = seq.bipolar(seq.t_bits())
-    tbl[1, :C.T_LEN] = seq.t_bits()
-    # cols 16-23: per-mode tables (row 0 = segment count, row 1 = arity)
-    tbl[0, 16:16 + len(C.MODES)] = [m.data_segment_cnt for m in C.MODES]
-    tbl[1, 16:16 + len(C.MODES)] = [m.arity for m in C.MODES]
-    eqi = np.broadcast_to(np.real(_init_eq_taps()).astype(np.float32)[:, None],
-                          (15, 128)).copy()
-    eqi = np.concatenate([eqi, np.zeros((1, 128), np.float32)], axis=0)
-    return bip, banks, tbl, eqi
-
-
-def tracker_block_pallas(state: TrackerState,
-                         x: jax.Array,
-                         level: jax.Array,
-                         num_steps: int,
-                         debug_taps: bool = False):
-    """Drop-in replacement for tracker.tracker_block.
-
-    Off TPU the kernel runs in Pallas interpret mode (pure-JAX emulation)
-    so the CPU test mesh can validate it; the compiled Mosaic path is
-    TPU-only.  debug_taps additionally emits the per-symbol loop
-    internals (costas dphi / phase error / timing fraction) for
-    --datadumps, matching the scan tracker's taps output."""
-    interpret = (bool(int(os.environ.get('DUMPHFDL_PALLAS_INTERPRET', '0')))
-                 or jax.devices()[0].platform != 'tpu')
-    syms_per_tile = min(int(os.environ.get('DUMPHFDL_PALLAS_SYMS', '512')),
-                        num_steps)
-    # acquisition gate: 'auto' = on (off for debug-taps blocks, whose
-    # whole point is full trajectories); 'off' = every tile active
-    # (exact trajectory parity with the scan tracker on noise too)
-    acq = os.environ.get('DUMPHFDL_ACQ', 'auto')
-    use_acq = acq != 'off' and not debug_taps
-    return _tracker_block_pallas(state, x, level, num_steps, syms_per_tile,
-                                 interpret, debug_taps, use_acq,
-                                 acq_threshold())
+        eq_taps=(eq[0:NEQ, :c] + 1j * eq[NEQ:2 * NEQ, :c]).T
+        .astype(jnp.complex64),
+        eq_buf=(eq[2 * NEQ:3 * NEQ, :c] + 1j * eq[3 * NEQ:, :c]).T
+        .astype(jnp.complex64),
+        window=window, **fields)
 
 
 @functools.partial(jax.jit,
-                   static_argnames=('num_steps', 'syms_per_tile', 'interpret',
-                                    'debug_taps', 'use_acq', 'acq_thr'))
-def _tracker_block_pallas(state: TrackerState,
-                          x: jax.Array,
-                          level: jax.Array,
-                          num_steps: int,
-                          syms_per_tile: int,
-                          interpret: bool,
-                          debug_taps: bool = False,
-                          use_acq: bool = False,
-                          acq_thr: float = 0.5):
-    from .tracker import HALO
+                   static_argnames=('num_steps', 'debug_taps', 'interpret',
+                                    'tile', 'gate'))
+def tracker_block_kernel(state: TrackerState,
+                         x: jax.Array,
+                         level: jax.Array,
+                         num_steps: int,
+                         debug_taps: bool = False,
+                         *,
+                         interpret: bool = False,
+                         tile: int = TILE,
+                         gate: bool | None = None):
+    """Drop-in replacement for tracker.tracker_block.
+
+    interpret=True runs the kernel in the Pallas interpreter (CPU tests
+    only); otherwise it is compiled through Triton for the GPU.  gate
+    (default: on unless debug_taps) enables the acquisition gate; with it
+    off every tile runs the full loop and the whole state matches the scan
+    tracker, noise included."""
+    if gate is None:
+        gate = not debug_taps
     c = x.shape[0]
     T = x.shape[1]
-    c_pad = -(-c // CT) * CT
+    c_pad = -(-c // tile) * tile
+    n_tiles = c_pad // tile
+    prev = state.acq_hit if state.acq_hit is not None \
+        else jnp.zeros((c,), jnp.int32)
 
-    # per-channel-tile activity: run the symbol loop only for tiles with
-    # a channel that is mid-frame (fr != A1_SEARCH), or whose prefilter
-    # saw preamble energy in this block or the previous one
-    if use_acq:
-        hits = acq_hits(x, acq_thr)
-        prev = state.acq_hit if state.acq_hit is not None \
-            else jnp.zeros((c,), jnp.int32)
-        need = ((state.fr_state != A1_SEARCH).astype(jnp.int32)
-                | hits | prev)
-        if c_pad != c:
-            need = jnp.pad(need, (0, c_pad - c))
-        act = (need.reshape(c_pad // CT, CT).max(axis=1, keepdims=True)
-               > 0).astype(jnp.int32)
+    if gate:
+        # run the loop only for tiles with a channel that is mid-frame,
+        # or whose prefilter saw preamble energy in this block or the
+        # previous one
+        hits = acq_hits(x)
+        need = (state.fr_state != A1_SEARCH).astype(jnp.int32) | hits | prev
+        act = jnp.pad(need, (0, c_pad - c)).reshape(n_tiles, tile).max(axis=1)
     else:
-        # gate off: every tile runs; acq_hit passes through unchanged
-        # (same as the scan tracker, keeping full state parity)
-        hits = state.acq_hit if state.acq_hit is not None \
-            else jnp.zeros((c,), jnp.int32)
-        act = jnp.ones((c_pad // CT, 1), jnp.int32)
+        hits = prev          # passes through unchanged, like the scan
+        act = jnp.ones((n_tiles,), jnp.int32)
 
     # per-block channel alignment (identical to the scan version)
     shift = jnp.clip(jnp.round(state.tau).astype(jnp.int32) - HALO_FRONT,
                      -8, 8)
-    x_pad = jnp.pad(x, ((0, 0), (8, 16)))
-    lvl_pad = jnp.pad(level, ((0, 0), (8, 16)), mode='edge')
+    x_pad = jnp.pad(x, ((0, 0), (8, SLAB)))
+    lvl_pad = jnp.pad(level, ((0, 0), (8, SLAB)), mode='edge')
     t_al = T + 8
     x_al = jax.vmap(lambda row, sh: jax.lax.dynamic_slice(
         row, (sh + 8,), (t_al,)))(x_pad, shift)
     lvl_al = jax.vmap(lambda row, sh: jax.lax.dynamic_slice(
         row, (sh + 8,), (t_al,)))(lvl_pad, shift)
     state = state._replace(tau=state.tau - shift.astype(jnp.float32))
-
     sf0, si0, eq0, win0 = _pack_state(state, c_pad)
 
-    S = syms_per_tile
-    t_tiles = -(-num_steps // S)
-    TSPAN = 3 * S + 16
+    # time-major, channel-padded planes
+    need_t = max(t_al, SLAB_BASE_OFF + 3 * (num_steps - 1) + SLAB)
 
-    # time-major planes, channel-padded
     def to_tc(a, fill=0.0):
-        a = a.T                                   # (t_al, c)
-        if c_pad != c:
-            a = jnp.pad(a, ((0, 0), (0, c_pad - c)),
-                        constant_values=fill)
-        return a
+        return jnp.pad(a.T, ((0, need_t - t_al), (0, c_pad - c)),
+                       constant_values=fill)
 
-    need_t = SLAB_BASE_OFF + 3 * S * t_tiles + 16
-    xre = to_tc(jnp.real(x_al).astype(jnp.float32))
-    xim = to_tc(jnp.imag(x_al).astype(jnp.float32))
-    if need_t > t_al:
-        xre = jnp.pad(xre, ((0, need_t - t_al), (0, 0)))
-        xim = jnp.pad(xim, ((0, need_t - t_al), (0, 0)))
-    # overlapping time tiles (the in-VMEM halo of the symbol slabs)
-    xre_t = jnp.stack([jax.lax.dynamic_slice(
-        xre, (SLAB_BASE_OFF + 3 * S * k, 0), (TSPAN, c_pad))
-        for k in range(t_tiles)])
-    xim_t = jnp.stack([jax.lax.dynamic_slice(
-        xim, (SLAB_BASE_OFF + 3 * S * k, 0), (TSPAN, c_pad))
-        for k in range(t_tiles)])
+    xre = to_tc(jnp.real(x_al))
+    xim = to_tc(jnp.imag(x_al))
     # AGC level at each symbol's slab center (base+6 = 3t+SLAB_BASE_OFF+6)
     lvl_sym = to_tc(lvl_al, 1.0)[SLAB_BASE_OFF + 6:
                                  SLAB_BASE_OFF + 6 + 3 * num_steps:3]
-    lvl_sym = jnp.pad(lvl_sym, ((0, t_tiles * S - num_steps), (0, 0)))
 
-    bip, banks, tbl, eqi = _const_tables()
-    c_tiles = c_pad // CT
-    grid = (c_tiles, t_tiles)
-    kern = functools.partial(_kernel, num_steps, S, debug_taps)
-
-    out_shapes = [
-        jax.ShapeDtypeStruct((t_tiles * S, c_pad), jnp.float32),   # sym re
-        jax.ShapeDtypeStruct((t_tiles * S, c_pad), jnp.float32),   # sym im
-        jax.ShapeDtypeStruct((t_tiles * S, c_pad), jnp.int32),     # packed
-        jax.ShapeDtypeStruct((SF_ROWS, c_pad), jnp.float32),
-        jax.ShapeDtypeStruct((SI_ROWS, c_pad), jnp.int32),
-        jax.ShapeDtypeStruct((EQ_ROWS, c_pad), jnp.float32),
-        jax.ShapeDtypeStruct((WIN_ROWS, c_pad), jnp.float32),
-        jax.ShapeDtypeStruct((AUX_ROWS, c_pad), jnp.float32),
-    ]
-    full = lambda rows: pl.BlockSpec((rows, CT), lambda i, j: (0, i),
-                                     memory_space=pltpu.VMEM)
-    tblock = lambda rows: pl.BlockSpec(
-        (rows, CT), lambda i, j: (j, i), memory_space=pltpu.VMEM)
-    const = lambda r, l: pl.BlockSpec((r, l), lambda i, j: (0, 0),
-                                      memory_space=pltpu.VMEM)
-    out_specs = [tblock(S), tblock(S), tblock(S),
-                 full(SF_ROWS), full(SI_ROWS), full(EQ_ROWS),
-                 full(WIN_ROWS), full(AUX_ROWS)]
-    if debug_taps:   # 3 extra per-symbol planes: dphi, phase err, tau frac
-        out_shapes += [jax.ShapeDtypeStruct((t_tiles * S, c_pad),
-                                            jnp.float32)] * 3
-        out_specs += [tblock(S)] * 3
+    plane = lambda dt: jax.ShapeDtypeStruct((num_steps, c_pad), dt)
+    out_shapes = [plane(jnp.float32), plane(jnp.float32), plane(jnp.int32),
+                  jax.ShapeDtypeStruct(sf0.shape, jnp.float32),
+                  jax.ShapeDtypeStruct(si0.shape, jnp.int32),
+                  jax.ShapeDtypeStruct(eq0.shape, jnp.float32),
+                  jax.ShapeDtypeStruct(win0.shape, jnp.int32),
+                  jax.ShapeDtypeStruct((K_EVENTS * EV_FIELDS, c_pad),
+                                       jnp.float32),
+                  jax.ShapeDtypeStruct((4, c_pad), jnp.float32)]
+    if debug_taps:   # dphi, phase err, tau frac
+        out_shapes += [plane(jnp.float32)] * 3
     results = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),      # tile activity
-            pl.BlockSpec((1, TSPAN, CT), lambda i, j: (j, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TSPAN, CT), lambda i, j: (j, 0, i),
-                         memory_space=pltpu.VMEM),
-            tblock(S),                            # lvl
-            const(16, 128),                       # bip
-            const(16, 40),                        # banks
-            const(8, 24),                         # tbl
-            const(16, 128),                       # eq init taps
-            full(SF_ROWS), full(SI_ROWS), full(EQ_ROWS), full(WIN_ROWS),
-        ],
-        out_specs=out_specs,
+        functools.partial(_kernel, num_steps, tile, debug_taps, gate),
+        grid=(n_tiles,),
         out_shape=out_shapes,
+        backend='triton',
+        compiler_params=plgpu.CompilerParams(num_warps=max(1, tile // 32),
+                                             num_stages=1),
         interpret=interpret,
-    )(act, xre_t, xim_t, lvl_sym, jnp.asarray(bip), jnp.asarray(banks),
-      jnp.asarray(tbl), jnp.asarray(eqi), sf0, si0, eq0, win0)
-    (sym_re, sym_im, packed, sf, si, eq, win, aux) = results[:8]
+        name='tracker_symbol_loop',
+    )(act, xre, xim, lvl_sym, jnp.asarray(_bank_table()), sf0, si0, eq0,
+      win0)
+    sym_re, sym_im, packed, sf, si, eq, win, ev, cnt = results[:9]
 
-    final = _unpack_state(sf, si, eq, win, c)
-    final = final._replace(acq_hit=hits)    # carry for the next block
+    final = _unpack_state(sf, si, eq, win, c)._replace(acq_hit=hits)
     final = final._replace(
         tau=final.tau + shift.astype(jnp.float32) - (T - HALO))
-    p = packed[:num_steps, :c]
+    p = packed[:, :c]
     outputs = TrackerOutputs(
-        sym=(sym_re[:num_steps, :c] + 1j * sym_im[:num_steps, :c])
-        .astype(jnp.complex64),
+        sym=(sym_re[:, :c] + 1j * sym_im[:, :c]).astype(jnp.complex64),
         is_data=(p & 1) != 0,
         data_idx=p // (2 * C.FRAME_PARITY_SLOTS),
         frame_parity=(p >> 1) & (C.FRAME_PARITY_SLOTS - 1),
-        taps=(jnp.stack([t[:num_steps, :c] for t in results[8:]], axis=-1)
+        taps=(jnp.stack([t[:, :c] for t in results[9:]], axis=-1)
               if debug_taps else None),
     )
-    ev = aux[:K_EVENTS * EV_FIELDS, :c].T.reshape(c, K_EVENTS * EV_FIELDS)
-    counters = aux[AUX_CNT0:AUX_CNT0 + 4, :c].T
-    return final, outputs, ev, counters
+    return final, outputs, ev[:, :c].T, cnt[:, :c].T

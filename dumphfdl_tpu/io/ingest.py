@@ -1,11 +1,11 @@
 """Decoupled ingest: reader thread -> ring/queue -> upload thread -> device.
 
-TPU-native equivalent of the reference's input pthread + cbuffercf
+Device-side equivalent of the reference's input pthread + cbuffercf
 one2one connection (/root/reference/src/block.c:55,
-src/input-soapysdr.c:226, src/input-file.c:35): while the chip crunches
+src/input-soapysdr.c:226, src/input-file.c:35): while the device crunches
 block N, the reader fills block N+1 and a background thread moves it to
-HBM, so the steady-state block period is max(read, transfer, compute)
-instead of their sum.
+device memory, so the steady-state block period is max(read, transfer,
+compute) instead of their sum.
 
 Raw SDR formats upload in their native width and convert on device
 (utils/xfer.device_put_cs16_raw / device_put_cu8_raw) -- half (CS16) or a
@@ -21,10 +21,11 @@ import time
 from collections.abc import Iterable, Iterator
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from ..utils.xfer import (device_put_cs16, device_put_cs16_raw,
-                          device_put_cu8_raw, device_put_safe)
+                          device_put_cu8_raw)
 from . import formats
 from .native import SampleRing
 
@@ -43,7 +44,7 @@ def upload(raw, fmt: str) -> jax.Array:
         if raw.dtype != np.complex64:
             raw = raw.view(np.uint8).copy().view(np.complex64) \
                 if raw.dtype == np.uint8 else np.asarray(raw, np.complex64)
-        return device_put_safe(raw)
+        return jnp.asarray(raw)
     raise ValueError(f'unknown sample format {fmt}')
 
 

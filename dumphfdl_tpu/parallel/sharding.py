@@ -21,9 +21,9 @@ Production mapping on a ('time', 'chan') mesh:
   P(('chan','time'))).  The narrowband redistribution to that layout is
   an EXPLICIT ``lax.all_to_all`` over 'time' inside the frontend's
   shard_map (left to GSPMD, the ring-append boundary compiles to a
-  full-ring all-gather -- measured 5.4x the minimum, r5) -- so the one
-  bulk cross-chip traffic is exactly (T-1)/T of the fs1 stream:
-  C x 6.75 ksps x 8 B -- a few MB/s per thousand channels, riding ICI.
+  full-ring all-gather) -- so the one bulk cross-device traffic is
+  exactly (T-1)/T of the fs1 stream: C x 6.75 ksps x 8 B -- a few MB/s
+  per thousand channels.
 
 `ShardedWidebandReceiver` is the production entry (used by the app when
 a mesh is configured); `dryrun_multichip` runs it end-to-end on a
@@ -51,23 +51,19 @@ def place_global(x, sharding) -> jax.Array:
     identical host-local copy (jax.make_array_from_callback)."""
     if sharding.is_fully_addressable:
         return jax.device_put(x, sharding)
-    if isinstance(x, jax.Array):
-        from ..utils.xfer import device_get
-        x = device_get(x)
     x = np.asarray(x)
     return jax.make_array_from_callback(x.shape, sharding,
                                         lambda idx: x[idx])
 
 
 def fetch_global(x):
-    """device_get that also works on cross-process arrays: gathers the
+    """np.asarray that also works on cross-process arrays: gathers the
     non-addressable shards from the other processes (every host gets the
     full array, like each reference instance seeing its own decode)."""
     if isinstance(x, jax.Array) and not x.is_fully_addressable:
         from jax.experimental import multihost_utils
         return np.asarray(multihost_utils.process_allgather(x, tiled=True))
-    from ..utils.xfer import device_get
-    return device_get(x)
+    return np.asarray(x)
 
 
 def make_mesh(devices=None, time_axis: int | None = None) -> Mesh:
@@ -248,8 +244,7 @@ class ShardedWidebandReceiver(WidebandReceiver):
             # mesh runs normally feed host chunks (app skips the ingest
             # upload when sharded); if a device array does arrive, read it
             # back via the restricted-safe path rather than np.asarray
-            from ..utils.xfer import device_get
-            wideband = device_get(wideband)
+            wideband = np.asarray(wideband)
         wideband = np.asarray(wideband, np.complex64)
         self._wb_buf = np.concatenate([self._wb_buf, wideband])
         events = []
@@ -299,7 +294,7 @@ class ShardedWidebandReceiver(WidebandReceiver):
           samples moving from the DDC's P('chan','time') layout to the
           demod ring's P(('chan','time'), None) layout via the explicit
           all_to_all over 'time' inside the frontend step: exactly
-          (T-1)/T of the stream crosses chips, riding ICI.
+          (T-1)/T of the stream crosses devices.
         * demod collectives: none -- channels are fully data-parallel.
         * event_readback_bytes: the per-block host readback (event table
           [+ fused decode words]).

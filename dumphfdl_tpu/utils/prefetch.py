@@ -5,8 +5,7 @@ separate pthreads connected by a ring buffer (block.c:55, the
 input->FFT one2one connection).  The device-side equivalent: while the
 chip crunches block N, a background thread uploads block N+1, so the
 steady-state block period is max(transfer, compute) instead of their
-sum.  On tunneled/bandwidth-limited interconnects the transfer is the
-bottleneck, making this overlap the difference between the two.
+sum.
 """
 
 from __future__ import annotations
@@ -16,8 +15,9 @@ import threading
 from collections.abc import Iterable, Iterator
 
 import jax
+import jax.numpy as jnp
 
-from .xfer import device_put_cs16, device_put_safe
+from .xfer import device_put_cs16
 
 
 def device_prefetch(blocks: Iterable, depth: int = 2,
@@ -28,7 +28,7 @@ def device_prefetch(blocks: Iterable, depth: int = 2,
     packed=True rides the int16-pair fast path (device_put_cs16);
     inputs must then be normalized complex in [-1, 1].
     """
-    put = device_put_cs16 if packed else device_put_safe
+    put = device_put_cs16 if packed else jnp.asarray
     q: queue.Queue = queue.Queue(maxsize=depth)
     SENTINEL = object()
 

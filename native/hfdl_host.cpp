@@ -2,7 +2,7 @@
 //
 // The reference implements its host runtime in C (pthread ring buffers in
 // src/block.c, sample converters in src/input-helpers.c).  This library
-// provides the TPU framework's equivalents: a lock-free single-producer/
+// provides this framework's equivalents: a lock-free single-producer/
 // single-consumer sample ring for live SDR ingest, and vectorizable
 // CU8/CS16 -> float32 converters with the reference's scaling
 // (input-helpers.c:94-126).  Exposed via a plain C ABI for ctypes.

@@ -1,6 +1,7 @@
 """Golden I/Q file decode through the full CLI stack."""
 
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -8,6 +9,9 @@ import pytest
 from dumphfdl_tpu import cli
 from dumphfdl_tpu.dsp import modulator
 from dumphfdl_tpu.io import formats
+
+SYSTABLE = str(pathlib.Path(__file__).resolve().parents[1]
+               / 'etc' / 'systable.conf')
 
 
 @pytest.fixture(scope='module')
@@ -36,7 +40,7 @@ def test_cli_text_output(capture):
         '--sample-format', 'CF32',
         '--sample-rate', str(capture['fs']),
         '--centerfreq', '8930',
-        '--system-table', '/root/reference/etc/systable.conf',
+        '--system-table', SYSTABLE,
         '--utc',
         '--output', f'decoded:text:file:path={out}',
     ] + [str(k) for k in capture['chans_khz']])

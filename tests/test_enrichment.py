@@ -1,5 +1,6 @@
 """Enrichment: basestation SQLite DB, systable file parsing, debug utils."""
 
+import pathlib
 import sqlite3
 
 import pytest
@@ -7,6 +8,9 @@ import pytest
 from dumphfdl_tpu.protocol.enrichment import AcData, SysTable
 from dumphfdl_tpu.protocol.runtime import ProtocolContext
 from dumphfdl_tpu.utils import debug
+
+SYSTABLE = str(pathlib.Path(__file__).resolve().parents[1]
+               / 'etc' / 'systable.conf')
 
 
 @pytest.fixture
@@ -51,7 +55,7 @@ def test_ac_data_formatting(bs_db):
 
 
 def test_systable_reference_file():
-    st = SysTable('/root/reference/etc/systable.conf')
+    st = SysTable(SYSTABLE)
     assert st.version == 52
     assert st.station_name(1) == 'San Francisco, California'
     assert st.station_frequency(1, 0) == 21934.0
@@ -110,7 +114,7 @@ def test_libconfig_rejects_malformed():
 
 
 def test_systable_roundtrip_extras(tmp_path):
-    st = SysTable('/root/reference/etc/systable.conf')
+    st = SysTable(SYSTABLE)
     assert st.available and len(st.stations) >= 10
     st.stations[1].utc_sync = True
     st.stations[1].master_frame_slots = [0, 3, 1]

@@ -52,7 +52,7 @@ def test_golden_capture_decodes(manifest):
 @pytest.mark.slow
 def test_fused_event_decode_matches_host_path():
     """fused_event_decode decodes frames on device inside channel_step
-    (the TPU single-readout collection path); forced on here (CPU) it
+    (the GPU single-readout collection path); forced on here (CPU) it
     must produce byte-identical PDUs to the host gather+decode path."""
     import numpy as np
     from dumphfdl_tpu import constants as C

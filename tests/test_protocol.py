@@ -1,5 +1,6 @@
 """Protocol stack tests: MPDU/SPDU/LPDU/HFNPDU/ACARS + formatters."""
 
+import pathlib
 import time
 
 import numpy as np
@@ -13,6 +14,9 @@ from dumphfdl_tpu.protocol import position as position_mod
 from dumphfdl_tpu.protocol.enrichment import AcCache, SysTable, parse_icao_hex
 from dumphfdl_tpu.protocol.pdu import PduMetadata, parse_pdu
 from dumphfdl_tpu.protocol.runtime import ProtocolContext
+
+SYSTABLE = str(pathlib.Path(__file__).resolve().parents[1]
+               / 'etc' / 'systable.conf')
 
 
 def icao_bytes(icao: int) -> bytes:
@@ -57,7 +61,7 @@ def make_perf_hfnpdu(lat_deg, lon_deg, hour, minute, sec, flight=b'BAW123'):
 @pytest.fixture
 def ctx():
     c = ProtocolContext()
-    c.systable.load('/root/reference/etc/systable.conf')
+    c.systable.load(SYSTABLE)
     return c
 
 

@@ -1,7 +1,7 @@
 """Coset polyphase resampler vs the reference gather formulation.
 
 channel._resample_ring decomposes the exact-rational resample into den
-fixed-phase FIRs over stride-num slices (TPU-friendly: no gathers); it
+fixed-phase FIRs over stride-num slices (no gathers); it
 must be BIT-EXACT vs the straightforward per-output gather (the
 frontend._resample exact path) for every ratio in use, including ring
 wraparound of the contiguous slab.
